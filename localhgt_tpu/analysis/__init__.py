@@ -15,7 +15,7 @@ re-implements their reusable cores as a library:
 - `network`     — per-sample HGT networks + topological properties + group
                   comparison (HGT_network.py:78-182,247-409)
 - `classifier`  — differential-HGT marker selection + phenotype classifier,
-                  TPU-trained logistic regression (HGT_classifier.py:247-458)
+                  device-trained logistic regression (HGT_classifier.py:247-458)
 - `stats`       — cohort-level breakpoint statistics & group tests
                   (basic_statistics.py)
 

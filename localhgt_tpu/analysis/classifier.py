@@ -120,7 +120,7 @@ def roc_auc(y_true, scores) -> float:
     return float((r[y == 1].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
 
 
-def train_logreg_tpu(X, y, l2: float = 1e-3, steps: int = 500,
+def train_logreg(X, y, l2: float = 1e-3, steps: int = 500,
                      lr: float = 0.05, seed: int = 0):
     """L2 logistic regression trained on device; returns a scoring closure.
 
@@ -197,7 +197,7 @@ def train_and_eval(samples, group1: str, group2: str,
         rfc.fit(Xt, yt)
         scores = rfc.predict_proba(Xv)[:, 1]
     else:
-        score, _ = train_logreg_tpu(Xt, yt, seed=seed)
+        score, _ = train_logreg(Xt, yt, seed=seed)
         scores = score(Xv)
     return {"auc": roc_auc(yv, scores), "n_markers": len(markers),
             "n_train": len(Xt), "n_val": len(Xv), "markers": markers}

@@ -89,7 +89,7 @@ def lodo(samples, group1: str, group2: str,
             clf.fit(Xt, yt)
             scores = clf.predict_proba(Xv)[:, 1]
         else:
-            score, _ = classifier.train_logreg_tpu(Xt, yt, seed=seed)
+            score, _ = classifier.train_logreg(Xt, yt, seed=seed)
             scores = score(Xv)
         auc = classifier.roc_auc(yv, scores)
         per[held] = auc

@@ -11,19 +11,19 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
+import logging
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lht_jax_cache")
-
 from localhgt_tpu.config import Config
+
+log = logging.getLogger("localhgt_tpu.cli")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="localhgt",
-        description="TPU-native LocalHGT: ultrafast HGT detection from "
-        "large microbial communities",
+        description="LocalHGT on an accelerator: ultrafast HGT detection "
+        "from large microbial communities",
     )
     sub = p.add_subparsers(dest="command")
 
@@ -144,7 +144,18 @@ def main(argv=None) -> int:
 
 def _dispatch(args) -> int:
     if args.command == "bkp":
+        import jax
+
         from localhgt_tpu.pipeline.bkp import detect_breakpoint
+        from localhgt_tpu.utils import compile_cache
+
+        cache = compile_cache.configure()
+        devs = jax.devices()
+        logging.basicConfig(
+            level=logging.INFO,
+            format="%(asctime)s %(name)s %(message)s", datefmt="%H:%M:%S")
+        log.info("devices: %d x %s (%s); compile cache %s", len(devs),
+                 devs[0].device_kind, devs[0].platform, cache)
 
         detect_breakpoint(
             args.r, args.fq1, args.fq2, args.s, args.o,

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native HGT detection engine.
+"""Typed configuration for the HGT detection engine.
 
 Centralizes every tunable and magic constant that the reference pipeline
 (deepomicslab/LocalHGT) scatters across C++ globals and Python module

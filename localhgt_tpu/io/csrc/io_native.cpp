@@ -1,4 +1,4 @@
-// Native host IO for the TPU HGT engine.
+// Native host IO for the HGT engine.
 //
 // Replaces the reference engine's in-process FASTQ streaming
 // (src/extract_ref_normal_peak.cpp:44-89,981-1107 — byte-range threads that

@@ -1,4 +1,4 @@
-"""Bit-sliced canonical k-mer hashing — the TPU-native formulation.
+"""Bit-sliced canonical k-mer hashing — the vectorized device formulation.
 
 The reference computes each k-mer hash with k scalar table lookups and adds per
 position per hash function (read_fastq inner loop,
@@ -17,7 +17,7 @@ streams:
    complement stream are W_0, ~W_1, ~W_2, and reversing the window order is a
    k-bit integer bit-reversal.
 
-Net cost: ~80 uint32 VPU ops per position for all three hash functions
+Net cost: ~80 uint32 elementwise ops per position for all three hash functions
 (vs ~600 scalar ops in the reference), with no per-position memory traffic.
 This also eliminates the reference's persistent hash index
 (<ref>.k32.h3.index.dat, ~12x the reference size, README.md:126): re-hashing

@@ -1,4 +1,4 @@
-"""Batched semi-global alignment with ungapped-block tracking, for TPU.
+"""Batched semi-global alignment with ungapped-block tracking, on the device.
 
 Device replacement for the scikit-bio `global_pairwise_align_nucleotide` +
 `extract_homology` inner loop of the reference's microhomology and mechanism
@@ -18,7 +18,7 @@ a diagonal move does R+1 / max(M, R+1), any gap move resets R to 0 and
 carries M unchanged — so one forward pass yields the block statistic with no
 traceback. Tie order everywhere: diagonal > vertical gap > horizontal gap,
 latest gap-open preferred — mirrored exactly by the numpy oracle below.
-O(L) VPU work per row, batch vmapped by construction.
+O(L) elementwise work per row, batch vmapped by construction.
 """
 
 from __future__ import annotations

@@ -1,28 +1,25 @@
-"""Pallas TPU kernels for batched local alignment (affine-gap SW).
+"""Pallas (Triton) kernel for batched local alignment with span recovery.
 
-The alignment extension stage is the pipeline's FLOP-heavy inner loop at
-production scale (hot loops 4/5 of the reference — bwa-mem extension at
-pipeline.sh:48 and the accurate_bkp SSW scans, accurate_bkp.py:29-37).
-The lax.scan formulation in localhgt_tpu.ops.sw round-trips its carries
-through XLA's scheduling and (for span recovery) materializes [M, B, N]
-H/origin tensors in HBM; these kernels pin the whole DP state in VMEM and
-run the row loop in-core, one grid step per batch tile.
+The plain `ops.sw.sw_align` runs its row loop as a `lax.scan` that writes
+two [M, B, N] int32 tensors (H and the packed origin) to device memory only
+to `argmax` them afterwards. This kernel keeps what the DP needs and nothing
+more: one program owns a block of pairs (pairs on the block axis), walks the
+M x N cells in order, and carries the running best, so the full matrices
+never exist.
 
-Layout: **sequence on sublanes, batch on lanes** — q is passed [M, B] and
-r is [N, B]; DP state is [N, TB] tiles. This orientation is load-bearing:
-the per-row query fetch is then a dynamic SUBLANE slice (q_ref[pl.ds(i,1)]),
-which Mosaic supports, whereas a dynamic LANE index (q_ref[:, i]) fails to
-compile ("index in dimension 1 must be a multiple of 128"). Lane-axis
-prefix scans become sublane shifts, done with static concatenates (the
-same pattern as ops.pallas_vote).
+Recurrence: the sequential Gotoh form of `sw_align`'s, with the
+gap-in-query term E as a running register along j,
 
-Recurrence identical to ops.sw (exact affine SW via prefix-max):
-    H1 = max(0, Hdiag + sub, F)        F from a cross-row running max
-    E  = prefmax_j(H1 - j*ext) + open + j*ext   (log2 N shift-max steps)
-    H  = max(H1, E)
-The align kernel additionally threads a packed origin register through
-every max decision (same origin scheme as ops.sw.sw_align) so one forward
-pass yields score, query span and ref span with no traceback.
+    H1 = max(max(0, Hdiag + sub), F)     F = Mf[j] + open + i*ext
+    E  = max_{j' < j}(H1[j'] - j'*ext) + open + j*ext
+    H  = max(H1, E)                      Mf[j] = max(Mf[j], H - i*ext)
+
+with a packed origin i*(N+1) + j threaded through every max decision
+(strictly greater wins, so ties keep the earlier operand exactly as
+`sw._maxpair` does). The previous row (H, origin) and the column state
+(Mf, origin) live in per-program buffers of [N, TB], read and written once
+per cell. The best cell is the first maximum in row-major order, the
+`argmax` rule of `sw_align`.
 """
 
 from __future__ import annotations
@@ -31,206 +28,125 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-NEG = -(1 << 28)  # python int: jnp module constants become captured consts in pallas
-
-
-def _shift_down_sub(x, s, fill):
-    """y[j, :] = x[j-s, :] for j >= s else fill (sublane-axis shift, static s)."""
-    TB = x.shape[1]
-    return jnp.concatenate(
-        [jnp.full((s, TB), fill, x.dtype), x[:-s]], axis=0)
+NEG = -(1 << 28)
+TB = 32      # pairs per program (one warp)
+UNROLL = 8   # cells per loop step; their loads are issued together
 
 
-def _sw_score_kernel(q_ref, r_ref, out_ref, *, M, N, match, mismatch,
-                     gap_open, gap_ext):
-    TB = q_ref.shape[1]
-    o = jnp.int32(gap_open)
-    e = jnp.int32(gap_ext)
-    r = r_ref[:]                                   # [N, TB] int32
-    r_valid = r < 4
-    jpos = jax.lax.broadcasted_iota(jnp.int32, (N, TB), dimension=0)
+def _kernel(q_ref, r_ref, h_ref, o_ref, f_ref, fo_ref, out_ref, *, M, N,
+            match, mismatch, gap_open, gap_ext):
+    cols = pl.ds(pl.program_id(0) * TB, TB)
+    zero = jnp.zeros((TB,), jnp.int32)
+    neg = jnp.full((TB,), NEG, jnp.int32)
+    Np1 = N + 1
 
-    def body(i, carry):
-        H_prev, Mf, best = carry
-        q_i = q_ref[pl.ds(i, 1), :]                # [1, TB] dynamic sublane
-        sub = jnp.where((r == q_i) & r_valid & (q_i < 4),
-                        jnp.int32(match), jnp.int32(mismatch))
-        Hd = _shift_down_sub(H_prev, 1, 0)
-        F = Mf + o + i * e
-        H1 = jnp.maximum(jnp.maximum(Hd + sub, 0), F)
-        # E via log-step prefix max of T = H1 - j*ext over j' < j
-        T = H1 - jpos * e
-        s = 1
-        while s < N:
-            T = jnp.maximum(T, _shift_down_sub(T, s, NEG))
-            s *= 2
-        Tm = _shift_down_sub(T, 1, NEG)
-        H = jnp.maximum(H1, Tm + o + jpos * e)
-        Mf = jnp.maximum(Mf, H - i * e)
-        best = jnp.maximum(best, jnp.max(H, axis=0, keepdims=True))
-        return H, Mf, best
+    def clear(j, c):
+        h_ref[j, cols] = zero
+        o_ref[j, cols] = zero
+        f_ref[j, cols] = neg
+        fo_ref[j, cols] = zero
+        return c
 
-    H0 = jnp.zeros((N, TB), jnp.int32)
-    Mf0 = jnp.full((N, TB), NEG)
-    best0 = jnp.zeros((1, TB), jnp.int32)
-    _, _, best = jax.lax.fori_loop(0, M, body, (H0, Mf0, best0))
-    out_ref[:] = jnp.broadcast_to(best, out_ref.shape)
+    jax.lax.fori_loop(0, N, clear, 0)
 
+    def row(i, best):
+        qi = q_ref[i, cols]
+        q_ok = qi < 4
+        F_off = gap_open + i * gap_ext
+        Mf_off = i * gap_ext
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("match", "mismatch", "gap_open", "gap_ext", "tile",
-                     "interpret"),
-)
-def sw_score_pallas(query, ref, match=1, mismatch=-2, gap_open=-3,
-                    gap_ext=-1, tile=256, interpret=False):
-    """Batched SW scores via the Pallas kernel.
+        def cells(j0, n, carry):
+            Hd, Od, Tm, TmO, rH, rO, rJ = carry
+            js = [j0 + u for u in range(n)]
+            rj = [r_ref[j, cols] for j in js]
+            Hp = [h_ref[j, cols] for j in js]
+            Op = [o_ref[j, cols] for j in js]
+            Mf = [f_ref[j, cols] for j in js]
+            MfO = [fo_ref[j, cols] for j in js]
+            for u, j in enumerate(js):
+                sub = jnp.where((rj[u] == qi) & (rj[u] < 4) & q_ok,
+                                match, mismatch)
+                diag = Hd + sub
+                diagO = jnp.where(Hd > 0, Od, i * Np1 + j)
+                H0 = jnp.maximum(diag, 0)
+                F = Mf[u] + F_off
+                take = F > H0
+                H1 = jnp.where(take, F, H0)
+                O1 = jnp.where(take, MfO[u], diagO)
+                E = Tm + (gap_open + j * gap_ext)
+                take = E > H1
+                H = jnp.maximum(jnp.where(take, E, H1), 0)
+                O = jnp.where(take, TmO, O1)
+                Hm = H - Mf_off
+                take = Hm > Mf[u]
+                f_ref[j, cols] = jnp.where(take, Hm, Mf[u])
+                fo_ref[j, cols] = jnp.where(take, O, MfO[u])
+                h_ref[j, cols] = H
+                o_ref[j, cols] = O
+                T = H1 - j * gap_ext
+                take = T > Tm
+                Tm = jnp.where(take, T, Tm)
+                TmO = jnp.where(take, O1, TmO)
+                take = H > rH
+                rH = jnp.where(take, H, rH)
+                rO = jnp.where(take, O, rO)
+                rJ = jnp.where(take, j, rJ)
+                Hd, Od = Hp[u], Op[u]
+            return Hd, Od, Tm, TmO, rH, rO, rJ
 
-    query: uint8 [B, M]; ref: uint8 [B, N]; B must be a multiple of `tile`
-    (callers pad). Returns int32 [B].
-    """
-    B, M = query.shape
-    N = ref.shape[1]
-    assert B % tile == 0, (B, tile)
-    kernel = functools.partial(
-        _sw_score_kernel, M=M, N=N, match=match, mismatch=mismatch,
-        gap_open=gap_open, gap_ext=gap_ext,
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid=(B // tile,),
-        in_specs=[
-            pl.BlockSpec((M, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, tile), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((8, B), jnp.int32),
-        interpret=interpret,
-    )(query.astype(jnp.int32).T, ref.astype(jnp.int32).T)
-    return out[0, :]
+        carry = (zero, zero, neg, zero, zero, zero, zero)
+        carry = jax.lax.fori_loop(
+            0, N // UNROLL,
+            lambda b, c: cells(b * UNROLL, UNROLL, c), carry)
+        if N % UNROLL:
+            carry = cells((N // UNROLL) * UNROLL, N % UNROLL, carry)
+        rH, rO, rJ = carry[4:]
+        bH, bO, bI, bJ = best
+        take = rH > bH
+        return (jnp.where(take, rH, bH), jnp.where(take, rO, bO),
+                jnp.where(take, i, bI), jnp.where(take, rJ, bJ))
 
-
-def _sw_align_kernel(q_ref, r_ref, out_ref, *, M, N, match, mismatch,
-                     gap_open, gap_ext):
-    """Full-span SW: the score recurrence with a packed origin register
-    propagated through every max decision, entirely in VMEM. One forward
-    pass yields score, query span and ref span; nothing M x N ever touches
-    HBM (the lax.scan formulation materialized [M, B, N] H and O tensors
-    and argmaxed them on HBM — the round-3 0.07 GCUPS production path).
-    Origin pack = i*(N+1) + j of the cell that STARTED the alignment."""
-    TB = q_ref.shape[1]
-    o = jnp.int32(gap_open)
-    e = jnp.int32(gap_ext)
-    r = r_ref[:]                                   # [N, TB] int32
-    r_valid = r < 4
-    jpos = jax.lax.broadcasted_iota(jnp.int32, (N, TB), dimension=0)
-    Np1 = jnp.int32(N + 1)
-
-    def maxpair(av, ao, bv, bo):
-        take_b = bv > av                       # ties keep a (earlier origin)
-        return jnp.where(take_b, bv, av), jnp.where(take_b, bo, ao)
-
-    def body(i, carry):
-        H_prev, O_prev, Mf, MfO, bH, bPack, bO, bI = carry
-        q_i = q_ref[pl.ds(i, 1), :]
-        sub = jnp.where((r == q_i) & r_valid & (q_i < 4),
-                        jnp.int32(match), jnp.int32(mismatch))
-        Hd = _shift_down_sub(H_prev, 1, 0)
-        Od = _shift_down_sub(O_prev, 1, 0)
-        start_O = i * Np1 + jpos               # fresh start at (i, j)
-        diag = Hd + sub
-        diagO = jnp.where(Hd > 0, Od, start_O)
-        F = Mf + o + i * e
-        H1, O1 = maxpair(jnp.maximum(diag, 0), diagO, F, MfO)
-        T = H1 - jpos * e
-        TO = O1
-        s = 1
-        while s < N:
-            Ts = _shift_down_sub(T, s, NEG)
-            TOs = _shift_down_sub(TO, s, 0)
-            T, TO = maxpair(T, TO, Ts, TOs)
-            s *= 2
-        Tm = _shift_down_sub(T, 1, NEG)
-        TmO = _shift_down_sub(TO, 1, 0)
-        H, O = maxpair(H1, O1, Tm + o + jpos * e, TmO)
-        H = jnp.maximum(H, 0)
-        Mf, MfO = maxpair(Mf, MfO, H - i * e, O)
-        # row best: pack = H*N + (N-1-j) maximizes H then minimizes j;
-        # strict > on H keeps the earliest row — together the flat-argmax
-        # (first maximum in row-major order) of the lax.scan formulation
-        pack = H * jnp.int32(N) + (jnp.int32(N - 1) - jpos)
-        rowPack = jnp.max(pack, axis=0, keepdims=True)
-        rowH = jnp.max(H, axis=0, keepdims=True)
-        rowO = jnp.max(jnp.where(pack == rowPack, O, -1), axis=0,
-                       keepdims=True)
-        better = rowH > bH
-        bPack = jnp.where(better, rowPack, bPack)
-        bO = jnp.where(better, rowO, bO)
-        bI = jnp.where(better, i, bI)
-        bH = jnp.where(better, rowH, bH)
-        return H, O, Mf, MfO, bH, bPack, bO, bI
-
-    zN = jnp.zeros((N, TB), jnp.int32)
-    z1 = jnp.zeros((1, TB), jnp.int32)
-    _, _, _, _, bH, bPack, bO, bI = jax.lax.fori_loop(
-        0, M, body, (zN, zN, jnp.full((N, TB), NEG), zN, z1, z1, z1, z1))
-    score = jnp.maximum(bH, 0)
-    rend = jnp.int32(N - 1) - (bPack - bH * jnp.int32(N))
+    bH, bO, bI, bJ = jax.lax.fori_loop(0, M, row, (zero, zero, zero, zero))
+    hit = bH > 0
     qstart = bO // Np1
-    rstart = bO - qstart * Np1
-    zero = score <= 0
-    z = jnp.zeros((1, TB), jnp.int32)
-
-    def field(x):
-        return jnp.where(zero, z, x)
-
-    row = jax.lax.broadcasted_iota(jnp.int32, out_ref.shape, dimension=0)
-    out = jnp.where(row == 0, score, 0)
-    out = jnp.where(row == 1, field(qstart), out)
-    out = jnp.where(row == 2, field(bI), out)
-    out = jnp.where(row == 3, field(rstart), out)
-    out = jnp.where(row == 4, field(rend), out)
-    out_ref[:] = out
+    out_ref[0, cols] = bH
+    out_ref[1, cols] = jnp.where(hit, qstart, 0)
+    out_ref[2, cols] = jnp.where(hit, bI, 0)
+    out_ref[3, cols] = jnp.where(hit, bO - qstart * Np1, 0)
+    out_ref[4, cols] = jnp.where(hit, bJ, 0)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("match", "mismatch", "gap_open", "gap_ext", "tile",
-                     "interpret"),
+    static_argnames=("match", "mismatch", "gap_open", "gap_ext", "interpret"),
 )
 def sw_align_pallas(query, ref, match=1, mismatch=-4, gap_open=-6,
-                    gap_ext=-1, tile=256, interpret=False):
-    """Batched SW with full span recovery via the Pallas kernel.
+                    gap_ext=-1, interpret=False):
+    """Batched SW with full span recovery.
 
-    query: uint8 [B, M]; ref: uint8 [B, N]; B must be a multiple of `tile`
-    (callers pad). Returns int32 [B, 5]: score, qstart, qend, rstart, rend
-    (same field order as ops.sw._FIELDS)."""
+    query: uint8 [B, M]; ref: uint8 [B, N] (code 4 = N/pad, never matches).
+    Returns int32 [5, B]: score, qstart, qend, rstart, rend (the field order
+    of ops.sw._FIELDS), bit-identical to ops.sw.sw_align."""
     B, M = query.shape
     N = ref.shape[1]
-    assert B % tile == 0, (B, tile)
+    Bp = -(-B // TB) * TB
+    q = jnp.full((M, Bp), 4, jnp.int32).at[:, :B].set(query.T)
+    r = jnp.full((N, Bp), 4, jnp.int32).at[:, :B].set(ref.T)
+    col = jax.ShapeDtypeStruct((N, Bp), jnp.int32)
     kernel = functools.partial(
-        _sw_align_kernel, M=M, N=N, match=match, mismatch=mismatch,
-        gap_open=gap_open, gap_ext=gap_ext,
-    )
-    out = pl.pallas_call(
+        _kernel, M=M, N=N, match=match, mismatch=mismatch,
+        gap_open=gap_open, gap_ext=gap_ext)
+    *_, out = pl.pallas_call(
         kernel,
-        grid=(B // tile,),
-        in_specs=[
-            pl.BlockSpec((M, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, tile), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((8, B), jnp.int32),
+        grid=(Bp // TB,),
+        out_shape=[col, col, col, col,
+                   jax.ShapeDtypeStruct((5, Bp), jnp.int32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )(query.astype(jnp.int32).T, ref.astype(jnp.int32).T)
-    return out[:5, :].T
+        name="sw_align",
+    )(q, r)
+    return out[:, :B]

@@ -1,21 +1,22 @@
-"""Pallas TPU kernel for the split-read vote's sequential greedy scan.
+"""Pallas (Triton) kernel for the split-read vote's sequential greedy scan.
 
 The vote (Split_reads::judge_base/check_split,
 src/extract_ref_normal_peak.cpp:118-202) walks read positions left to right
 keeping a small register of already-seen genomes; each position's candidate
 (one per hash function) prefers a genome that is already ahead. The
-left-to-right dependence forces a sequential loop over positions; as an XLA
-lax.scan the ~30 tiny [B, G] ops per position each become separate kernel
-launches, leaving the pass launch-overhead-bound.
+left-to-right dependence forces a sequential loop over positions. As an XLA
+`lax.scan` (pipeline/peaks.py `_vote_core`) every step reads and writes four
+[B, G] state arrays in device memory, although each pair's state is only
+4 x G int32.
 
-Here the whole loop runs inside ONE Pallas kernel: state lives in VMEM
-([G, Bt] tiles, G=8 sublanes x Bt lanes), candidate columns stream in U=8
-position blocks via aligned sublane slices, and the per-position update is
-~30 VPU ops on a single resident tile. Layout: pairs on lanes, positions on
-sublanes — the natural (8, 128) VPU tile.
+Here one program owns a block of pairs and runs the whole position loop with
+that state in registers: pairs on the block axis, the G slots as the minor
+axis, and each position's C candidate rows loaded once, contiguous along
+pairs from a position-major [(P*C), B] layout. The first-victim pick is a
+min-over-iota reduction (Triton lowers neither `cummax` nor concatenate).
 
-Semantics are bit-identical to the lax.scan path (pipeline/peaks.py
-_vote_core); tests compare them directly. CPU runs use interpret mode.
+Semantics are bit-identical to the `lax.scan` path; tests compare the two in
+interpret mode on the CPU.
 """
 
 from __future__ import annotations
@@ -25,86 +26,71 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-UNROLL = 8
-BLOCK_B = 512
+
+def block_pairs(B: int) -> int:
+    """Pairs per program: a power of two small enough that a bucket still
+    spreads over every SM (>= ~2 programs per SM of an H100 at B=4096),
+    large enough that a program's warps are full."""
+    tb = 16
+    while tb < 64 and B // (2 * tb) >= 264:
+        tb *= 2
+    return tb
 
 
 def _kernel(cg_ref, cp_ref, og_ref, oc_ref, op_ref, oh_ref, *, C: int,
-            G: int):
-    P = cg_ref.shape[0] // C
-    Bt = cg_ref.shape[1]
-    nblk = P // UNROLL
+            G: int, P: int, TB: int):
+    cols = pl.ds(pl.program_id(0) * TB, TB)
+    slot = jax.lax.broadcasted_iota(jnp.int32, (TB, G), 1)
+    zero = jnp.zeros((TB,), jnp.int32)
 
-    def block_body(i, carry):
+    def position(t, carry):
         sg, sc, sp, st, hits = carry
-        cg_blk = cg_ref[pl.ds(i * UNROLL * C, UNROLL * C), :]
-        cp_blk = cp_ref[pl.ds(i * UNROLL * C, UNROLL * C), :]
-        one = jnp.ones((1, Bt), jnp.int32)
-        zero = jnp.zeros((1, Bt), jnp.int32)
-        for u in range(UNROLL):
-            sel_g = jnp.zeros((1, Bt), jnp.int32)
-            sel_cnt = jnp.zeros((1, Bt), jnp.int32)
-            sel_p = jnp.zeros((1, Bt), jnp.int32)
-            # int32 mask arithmetic throughout: Mosaic rejects i1->i32
-            # vector casts, so booleans only feed jnp.where selects
-            for c in range(C):
-                r = u * C + c
-                g = cg_blk[r : r + 1, :]
-                p = cp_blk[r : r + 1, :]
-                is_cand = p != 0
-                match = (sg == g) & (sg != 0)
-                seen = jnp.max(jnp.where(match, 1, 0), axis=0, keepdims=True)
-                cnt = jnp.max(jnp.where(match, sc, 0), axis=0, keepdims=True)
-                take_seen = is_cand & (seen == 1) & (cnt >= sel_cnt)
-                take_new = is_cand & (seen == 0) & (sel_p == 0)
-                take = take_seen | take_new
-                sel_g = jnp.where(take, g, sel_g)
-                sel_cnt = jnp.where(
-                    take_seen, cnt, jnp.where(take_new, 0, sel_cnt))
-                sel_p = jnp.where(take, p, sel_p)
-            do = sel_p != 0
-            match = (sg == sel_g) & (sg != 0)
-            have = jnp.max(jnp.where(match, 1, 0), axis=0, keepdims=True)
-            sc = sc + jnp.where(match & do, 1, 0)
-            # victim = first empty slot, or (register full) the
-            # MOST-RECENTLY-INSERTED count-1 slot (per-slot insertion
-            # stamp `st`) — the eviction policy of peaks._vote_core
-            # one_position (see the rationale there); bit-identical paths
-            t = i * UNROLL + (u + 1)
-            emptyi = jnp.where(sg == 0, 1, 0)
-            count1i = jnp.where((sg != 0) & (sc == 1), 1, 0)
-            has_empty = jnp.max(emptyi, axis=0, keepdims=True)
-            tc1 = jnp.where(count1i == 1, st, -1)
-            mx = jnp.max(tc1, axis=0, keepdims=True)
-            mrui = jnp.where((count1i == 1) & (tc1 == mx), 1, 0)
-            victimi = jnp.where(has_empty == 1, emptyi, mrui)
-            # first victim slot: prefix-max of `victimi` over the G
-            # sublanes in log steps (cumsum is unsupported in Pallas TPU)
-            prior = jnp.concatenate(
-                [jnp.zeros((1, Bt), jnp.int32), victimi[:-1]], axis=0)
-            sh = 1
-            while sh < G:
-                prior = jnp.maximum(prior, jnp.concatenate(
-                    [jnp.zeros((sh, Bt), jnp.int32), prior[:-sh]], axis=0))
-                sh *= 2
-            ins = (victimi == 1) & (prior == 0) & do & (have == 0)
-            sg = jnp.where(ins, sel_g, sg)
-            sc = jnp.where(ins, 1, sc)
-            sp = jnp.where(ins, sel_p, sp)
-            st = jnp.where(ins, t, st)
-            hits = hits + jnp.where(do, one, zero)
+        sel_g = sel_cnt = sel_p = zero
+        for c in range(C):
+            g = cg_ref[t * C + c, cols]
+            p = cp_ref[t * C + c, cols]
+            is_cand = p != 0
+            match = sg == g[:, None]
+            seen = jnp.max(jnp.where(match & (sg != 0), 1, 0), axis=1) == 1
+            cnt = jnp.max(jnp.where(match, sc, 0), axis=1)
+            take_seen = is_cand & seen & (cnt >= sel_cnt)
+            take_new = is_cand & ~seen & (sel_p == 0)
+            take = take_seen | take_new
+            sel_g = jnp.where(take, g, sel_g)
+            sel_cnt = jnp.where(take_seen, cnt,
+                                jnp.where(take_new, 0, sel_cnt))
+            sel_p = jnp.where(take, p, sel_p)
+        do = sel_p != 0
+        live = sg != 0
+        match = (sg == sel_g[:, None]) & live
+        have = jnp.max(jnp.where(match, 1, 0), axis=1) == 1
+        sc = sc + jnp.where(match & do[:, None], 1, 0)
+        # victim: the first empty slot, or (register full) the first of the
+        # most-recently-inserted count-1 slots — _vote_core's policy
+        empty = ~live
+        count1 = live & (sc == 1)
+        has_empty = jnp.max(jnp.where(empty, 1, 0), axis=1) == 1
+        tc1 = jnp.where(count1, st, -1)
+        mru = count1 & (tc1 == jnp.max(tc1, axis=1)[:, None])
+        victim = jnp.where(has_empty[:, None], empty, mru)
+        first = jnp.min(jnp.where(victim, slot, G), axis=1)
+        ins = (slot == first[:, None]) & (do & ~have)[:, None]
+        sg = jnp.where(ins, sel_g[:, None], sg)
+        sc = jnp.where(ins, 1, sc)
+        sp = jnp.where(ins, sel_p[:, None], sp)
+        st = jnp.where(ins, t + 1, st)
+        hits = hits + jnp.where(do, 1, 0)
         return sg, sc, sp, st, hits
 
-    z = jnp.zeros((G, Bt), jnp.int32)
-    h0 = jnp.zeros((1, Bt), jnp.int32)
-    sg, sc, sp, _, hits = jax.lax.fori_loop(
-        0, nblk, block_body, (z, z, z, z, h0))
-    og_ref[:] = sg
-    oc_ref[:] = sc
-    op_ref[:] = sp
-    oh_ref[:] = hits
+    z = jnp.zeros((TB, G), jnp.int32)
+    sg, sc, sp, _, hits = jax.lax.fori_loop(0, P, position,
+                                            (z, z, z, z, zero))
+    og_ref[cols, :] = sg
+    oc_ref[cols, :] = sc
+    op_ref[cols, :] = sp
+    oh_ref[cols] = hits
 
 
 @functools.partial(jax.jit, static_argnames=("n_slots", "interpret"))
@@ -119,50 +105,25 @@ def vote_state(genome, pk, n_slots: int = 8, interpret: bool = False):
     """
     C, B, P = pk.shape
     G = n_slots
-    # pad positions to UNROLL blocks, pairs to the lane block
-    padP = (-P) % UNROLL
-    padB = (-B) % BLOCK_B if B >= BLOCK_B else BLOCK_B - B
-    if padP:
-        z = jnp.zeros((C, B, padP), jnp.int32)
-        genome = jnp.concatenate([genome, z], 2)
-        pk = jnp.concatenate([pk, z], 2)
-    if padB:
-        z = jnp.zeros((C, padB, pk.shape[2]), jnp.int32)
-        genome = jnp.concatenate([genome, z], 1)
-        pk = jnp.concatenate([pk, z], 1)
-    Pp = pk.shape[2]
-    Bp = pk.shape[1]
+    TB = block_pairs(B)
+    Bp = -(-B // TB) * TB
+    if Bp != B:
+        pad = ((0, 0), (0, Bp - B), (0, 0))
+        genome = jnp.pad(genome, pad)
+        pk = jnp.pad(pk, pad)
     # [C, B, P] -> [P, C, B] -> [(P*C), B]: position-major, hash-fn inner
-    cg = jnp.transpose(genome, (2, 0, 1)).reshape(Pp * C, Bp)
-    cp = jnp.transpose(pk, (2, 0, 1)).reshape(Pp * C, Bp)
-
-    grid = (Bp // BLOCK_B,)
-    kernel = functools.partial(_kernel, C=C, G=G)
+    cg = jnp.transpose(genome, (2, 0, 1)).reshape(P * C, Bp)
+    cp = jnp.transpose(pk, (2, 0, 1)).reshape(P * C, Bp)
+    slots = jax.ShapeDtypeStruct((Bp, G), jnp.int32)
     og, oc, op, oh = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((Pp * C, BLOCK_B), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Pp * C, BLOCK_B), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((G, BLOCK_B), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((G, BLOCK_B), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((G, BLOCK_B), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BLOCK_B), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((G, Bp), jnp.int32),
-            jax.ShapeDtypeStruct((G, Bp), jnp.int32),
-            jax.ShapeDtypeStruct((G, Bp), jnp.int32),
-            jax.ShapeDtypeStruct((1, Bp), jnp.int32),
-        ],
+        functools.partial(_kernel, C=C, G=G, P=P, TB=TB),
+        grid=(Bp // TB,),
+        out_shape=[slots, slots, slots,
+                   jax.ShapeDtypeStruct((Bp,), jnp.int32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=max(1, TB // 32),
+                                             num_stages=1),
         interpret=interpret,
+        name="vote_greedy",
     )(cg, cp)
-    return (og.T[:B], oc.T[:B], op.T[:B], oh[0, :B])
+    return og[:B], oc[:B], op[:B], oh[:B]

@@ -363,8 +363,8 @@ def make_collect_step(mesh: Mesh, k: int, coder_num: int):
             cnt = _distributed_lookup(t, hm[i])
             ok = ok.at[i].set(ok[i] & (cnt > 0))
         SEN = jnp.uint32(0xFFFFFFFF)
-        # coder-major flatten (no [n, C] transpose, whose small minor dim
-        # would lane-pad); order is irrelevant under scatter-max dedupe
+        # coder-major flatten (no [n, C] transpose); order is irrelevant
+        # under scatter-max dedupe
         keys = jnp.where(ok, hm, SEN).reshape(-1)
         vals = jnp.broadcast_to(pids[None, :], hm.shape).reshape(-1)
         vals = jnp.where(keys == SEN, 0, vals)

@@ -91,28 +91,28 @@ _CLASS = {
 
 
 def _dbscan_labels(xy: np.ndarray, eps: float) -> np.ndarray:
-    """DBSCAN with min_samples=1 == connected components of the eps-ball graph
-    (Euclidean). Uses sklearn when available for exact parity."""
-    try:
-        from sklearn.cluster import DBSCAN
+    """DBSCAN(eps, min_samples=1) labels: the connected components of the
+    graph joining points at Euclidean distance <= eps (every point is a core
+    point at min_samples=1, so DBSCAN's clusters are exactly these
+    components). Labels are numbered by first appearance, as sklearn's are.
+    O(n log n + edges) through a k-d tree."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    from scipy.spatial import cKDTree
 
-        return DBSCAN(eps=eps, min_samples=1).fit(xy).labels_
-    except ImportError:  # pragma: no cover
-        n = len(xy)
-        parent = list(range(n))
-
-        def find(i):
-            while parent[i] != i:
-                parent[i] = parent[parent[i]]
-                i = parent[i]
-            return i
-
-        for i in range(n):
-            for j in range(i + 1, n):
-                if np.hypot(*(xy[i] - xy[j])) <= eps:
-                    parent[find(i)] = find(j)
-        roots = {}
-        return np.array([roots.setdefault(find(i), len(roots)) for i in range(n)])
+    n = len(xy)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    pairs = cKDTree(xy).query_pairs(eps, output_type="ndarray")
+    graph = coo_matrix((np.ones(len(pairs), np.int8),
+                        (pairs[:, 0], pairs[:, 1])), shape=(n, n))
+    _, comp = connected_components(graph, directed=False)
+    # renumber components in order of each one's first point
+    first = np.full(comp.max() + 1, n, np.int64)
+    np.minimum.at(first, comp, np.arange(n))
+    rank = np.empty_like(first)
+    rank[np.argsort(first, kind="stable")] = np.arange(len(first))
+    return rank[comp]
 
 
 def call_raw_bkps(a1: AlnTable, a2: AlnTable, ins: InsertStats,

@@ -4,7 +4,7 @@ The reference's novel component is the k-mer extraction stage
 (src/extract_ref_normal_peak.cpp:1342-1519, invoked at pipeline.sh:35): it
 emits `interval.txt` — the HGT-candidate reference intervals that the whole
 downstream alignment stage runs against. This tool compiles that exact C++
-source, runs it and the TPU extraction on the SAME fixture with the SAME
+source, runs it and this package's extraction on the SAME fixture with the SAME
 seed/k/e/ratios, and reports interval-level agreement:
 
   * bp-level overlap (intersection / union) of the two interval sets after
@@ -143,7 +143,7 @@ def _normalize(intervals: list, contig_lens: dict | None = None) -> list:
     return out
 
 
-def run_tpu_extract(fq1: str, fq2: str, ref: str, cfg) -> list:
+def run_extract(fq1: str, fq2: str, ref: str, cfg) -> list:
     """Our extraction stage -> same normalized (name, start, end) form."""
     from localhgt_tpu.index import reference as ref_index
     from localhgt_tpu.pipeline import extract as extract_mod
@@ -176,32 +176,32 @@ def _overlap_bp(a: list, b: list) -> int:
     return total
 
 
-def compare_intervals(ref_ivs: list, tpu_ivs: list, truth_loci: list,
+def compare_intervals(ref_ivs: list, our_ivs: list, truth_loci: list,
                       tol: int = 50) -> dict:
     """Agreement report. truth_loci: [(contig_name, pos), ...]."""
     bp_ref = sum(e - s for _, s, e in ref_ivs)
-    bp_tpu = sum(e - s for _, s, e in tpu_ivs)
-    inter = _overlap_bp(ref_ivs, tpu_ivs)
-    union = bp_ref + bp_tpu - inter
-    cov_ref, cov_tpu = _coverage(ref_ivs), _coverage(tpu_ivs)
-    hit_ref = hit_tpu = 0
+    bp_ours = sum(e - s for _, s, e in our_ivs)
+    inter = _overlap_bp(ref_ivs, our_ivs)
+    union = bp_ref + bp_ours - inter
+    cov_ref, cov_ours = _coverage(ref_ivs), _coverage(our_ivs)
+    hit_ref = hit_ours = 0
     for name, pos in truth_loci:
         if _covered(cov_ref, name, pos - tol, pos + tol):
             hit_ref += 1
-        if _covered(cov_tpu, name, pos - tol, pos + tol):
-            hit_tpu += 1
+        if _covered(cov_ours, name, pos - tol, pos + tol):
+            hit_ours += 1
     n = max(1, len(truth_loci))
     return {
         "n_intervals_ref": len(ref_ivs),
-        "n_intervals_tpu": len(tpu_ivs),
+        "n_intervals_ours": len(our_ivs),
         "bp_ref": bp_ref,
-        "bp_tpu": bp_tpu,
+        "bp_ours": bp_ours,
         "bp_intersection": inter,
         "bp_jaccard": round(inter / union, 4) if union else 1.0,
         "recall_vs_ref": round(inter / bp_ref, 4) if bp_ref else 1.0,
         "n_truth_loci": len(truth_loci),
         "truth_coverage_ref": round(hit_ref / n, 4),
-        "truth_coverage_tpu": round(hit_tpu / n, 4),
+        "truth_coverage_ours": round(hit_ours / n, 4),
     }
 
 
@@ -235,8 +235,8 @@ def run_ab(work_dir: str = "/tmp/lht_ab", k: int = 30, n_genomes: int = 20,
     cfg = Config().replace(kmer=KmerConfig(k=k, strict_sampling=True))
     ref_ivs = run_reference_extract(binary, fq1, fq2, ref, work_dir, cfg,
                                     threads=threads)
-    tpu_ivs = run_tpu_extract(fq1, fq2, ref, cfg)
-    report = compare_intervals(ref_ivs, tpu_ivs,
+    our_ivs = run_extract(fq1, fq2, ref, cfg)
+    report = compare_intervals(ref_ivs, our_ivs,
                                truth_loci_from_file(truth_path))
     report["k"] = k
     return report
@@ -246,7 +246,7 @@ def main(argv=None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(
-        description="A/B the TPU extraction vs the reference extract_ref")
+        description="A/B this extraction vs the reference extract_ref")
     p.add_argument("--workdir", default="/tmp/lht_ab")
     p.add_argument("-k", type=int, default=30)
     p.add_argument("--genomes", type=int, default=20)

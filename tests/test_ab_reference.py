@@ -1,4 +1,4 @@
-"""A/B parity test: TPU extraction vs the compiled reference extract_ref.
+"""A/B parity test: this extraction vs the compiled reference extract_ref.
 
 Compiles the actual reference C++ engine (src/extract_ref_normal_peak.cpp)
 and compares interval-level output on a shared fixture — the "prove parity
@@ -35,7 +35,7 @@ def ab_report(tmp_path_factory):
 def test_truth_loci_covered_by_both(ab_report):
     """Every true junction locus must sit inside BOTH engines' extracted
     intervals (evaluation.py:64-76 extraction recall)."""
-    assert ab_report["truth_coverage_tpu"] >= 0.95
+    assert ab_report["truth_coverage_ours"] >= 0.95
     assert ab_report["truth_coverage_ref"] >= 0.95
 
 

@@ -1,5 +1,5 @@
 """Exact-bytes golden regression of the downstream output contract
-(r2 VERDICT ask #5a).
+(the byte-exact output contract).
 
 The e2e recall/FDR gates tolerate silent behavioral drift in
 align/rawbkp/accbkp as long as scores stay in-band; these tests pin the
@@ -25,14 +25,20 @@ GOLD = os.path.join(os.path.dirname(__file__), "golden")
 
 
 @pytest.fixture(scope="module")
-def pipeline_outputs(tmp_path_factory):
-    from localhgt_tpu.pipeline.bkp import detect_breakpoint
-    from localhgt_tpu.pipeline.event import detect_event
-
+def fixture_files(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("golden"))
     pa = SimParams(n_genomes=6, genome_len=30_000, hgt_num=3, depth=8,
                    snp_rate=0.01, seed=33)
     ref, fq1, fq2, _ = simulate_sample(out, "gold", pa)
+    return out, ref, fq1, fq2
+
+
+@pytest.fixture(scope="module")
+def pipeline_outputs(fixture_files):
+    from localhgt_tpu.pipeline.bkp import detect_breakpoint
+    from localhgt_tpu.pipeline.event import detect_event
+
+    out, ref, fq1, fq2 = fixture_files
     cfg = Config().replace(kmer=KmerConfig(k=18))
     acc = detect_breakpoint(ref, fq1, fq2, "gold", out, cfg=cfg)
     ev = os.path.join(out, "gold.events.csv")
@@ -64,3 +70,15 @@ def test_acc_csv_matches_golden(pipeline_outputs):
 def test_event_csv_matches_golden(pipeline_outputs):
     _, ev = pipeline_outputs
     _check(ev, "gold.events.csv")
+
+
+def test_cli_bkp_matches_golden(fixture_files, tmp_path):
+    """The CLI entry point with its default flags (what chip_smoke.py runs
+    on the card) writes the same bytes as detect_breakpoint."""
+    from localhgt_tpu import cli
+
+    _, ref, fq1, fq2 = fixture_files
+    rc = cli.main(["bkp", "-r", ref, "--fq1", fq1, "--fq2", fq2, "-k", "18",
+                   "-s", "gold", "-o", str(tmp_path)])
+    assert rc == 0
+    _check(str(tmp_path / "gold.acc.csv"), "gold.acc.csv")

@@ -1,79 +1,35 @@
-"""The TPU tiling guard: the round-2 bench OOM class of bug must be
-impossible to ship again.
-
-BENCH_r02 crashed because a [2^27, 4] int32 device table lane-padded 4->128
-(2 GiB billed as 64 GiB). The guard models the T(8, 128) tiling cost and
-every big resident structure asserts it at build time; these tests pin the
-model and prove the production k=32 structures pass at representative
-("small-but-packed") sizes — the VERDICT round-2 ask #2."""
+"""Sizes of the resident device structures of the production k=32
+configuration: every one is a flat 1-D array whose bytes are exactly its
+logical size, checked without allocating, plus a device rank-map build big
+enough that a mis-sized structure would show."""
 
 import numpy as np
-import pytest
-
-from localhgt_tpu.utils import layout
-
-
-def test_guard_flags_the_round2_bucket_shape():
-    """The exact shape that crashed BENCH_r02 must be rejected."""
-    class Fake:
-        shape = (1 << 27, 4)
-        dtype = np.dtype(np.int32)
-
-    with pytest.raises(layout.LayoutError):
-        layout.assert_lane_efficient(Fake(), "bucket")
-    # billed/logical ratio for minor dim 4 is 128/4 = 32x
-    assert layout.padded_ratio((1 << 27, 4)) == 32.0
-
-
-def test_guard_passes_flat_and_full_lane_shapes():
-    class Flat:
-        shape = (1 << 29,)
-        dtype = np.dtype(np.int32)
-
-    class FullLanes:
-        shape = (1 << 20, 256)
-        dtype = np.dtype(np.int32)
-
-    layout.assert_lane_efficient(Flat(), "flat")
-    layout.assert_lane_efficient(FullLanes(), "full")
-    assert layout.padded_ratio((1 << 29,)) == 1.0
-    assert layout.padded_ratio((1 << 20, 256)) == 1.0
-
-
-def test_guard_ignores_small_arrays():
-    class Small:
-        shape = (64, 3)
-        dtype = np.dtype(np.int32)
-
-    layout.assert_lane_efficient(Small(), "small")  # under min_bytes
 
 
 def test_k32_resident_structures_are_lane_efficient():
-    """Every resident structure of the default k=32 configuration passes
-    the guard at its PRODUCTION size (shape-only check — no allocation)."""
+    """The packed count table and the rank map at k=32 are 1-D arrays of
+    the planned sizes (shape-only check: jax.eval_shape, no allocation)."""
+    import jax
+
     from localhgt_tpu.ops import count as count_mod
+    from localhgt_tpu.pipeline import peaks as pm
 
     k = 32
-
-    class Shaped:
-        def __init__(self, shape, dtype):
-            self.shape = shape
-            self.dtype = np.dtype(dtype)
-
-    # packed count table: int32 [2^(k-3)]
-    layout.assert_lane_efficient(
-        Shaped((1 << (k - count_mod.PACKED_SHIFT_BITS),), np.int32), "table")
-    # rank map: wp int32 [2^(k-4)], pids int32 [Ku]; bitmap uint8 [2^(k-3)]
-    layout.assert_lane_efficient(Shaped((1 << (k - 4),), np.int32), "wp")
-    layout.assert_lane_efficient(Shaped((240_000_128,), np.int32), "pids")
-    layout.assert_lane_efficient(Shaped((1 << (k - 3),), np.uint8), "bitmap")
+    table = jax.eval_shape(lambda: count_mod.make_table(k))
+    assert table.shape == (1 << (k - count_mod.PACKED_SHIFT_BITS),)
+    assert table.dtype == np.int32
+    assert table.size * table.dtype.itemsize == 2 << 30      # 2 GiB
+    # rank map: interleaved (word, prefix) int32 pairs over 2^(k-5) words
+    W = 1 << (k - 5)
+    assert 2 * W * 4 == 1 << 30                               # wp: 1 GiB
+    assert pm._pids_cap(240_000_000) % 128 == 0
 
 
 def test_rankmap_device_build_at_packed_size():
     """Force the device rank-map build at a bitmap big enough that a padded
     layout would blow past any unit-test budget (2^26-hash space, >= 2^20
-    stored keys), then verify lookups — the 'forced big build' smoke of
-    VERDICT ask #2, runnable on CPU because every array is 1-D."""
+    stored keys), then verify lookups — runnable on CPU because every
+    array is 1-D."""
     import jax.numpy as jnp
 
     from localhgt_tpu.pipeline import peaks as pm
@@ -87,6 +43,7 @@ def test_rankmap_device_build_at_packed_size():
                 jnp.asarray(ps[i * B:(i + 1) * B])) for i in range(3)]
     rm = pm.build_rankmap_device(lambda: iter(batches), k)
     assert np.asarray(rm.wp).ndim == 1 and np.asarray(rm.pids).ndim == 1
+    assert np.asarray(rm.wp).shape == (2 << (k - 5),)
     sel = rng.choice(len(hs), 4096, replace=False)
     got = np.asarray(pm.rank_lookup(jnp.asarray(np.asarray(rm.wp)),
                                     jnp.asarray(np.asarray(rm.pids)),

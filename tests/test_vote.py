@@ -3,6 +3,7 @@ both; pure single-genome pairs vote for none (check_split requires >= 2
 genomes with >= MIN_BASE_NUM voting bases, cpp:161-202)."""
 
 import numpy as np
+import pytest
 
 from localhgt_tpu.ops import encode
 from localhgt_tpu.pipeline import peaks as pm
@@ -149,42 +150,78 @@ def test_build_direct_map_device():
     np.testing.assert_array_equal(dm, dm_host)
 
 
-def test_pallas_vote_state_matches_scan():
-    """The Pallas greedy-scan kernel (interpret mode on CPU) must produce
-    the identical final register state as the lax.scan path."""
+def _kernel_and_scan(genome, pk, n_slots=8):
     import jax.numpy as jnp
 
     from localhgt_tpu.ops import pallas_vote
 
+    got = pallas_vote.vote_state(jnp.asarray(genome), jnp.asarray(pk),
+                                 n_slots=n_slots, interpret=True)
+    want = pm.vote_state_scan(jnp.asarray(genome), jnp.asarray(pk), n_slots)
+    return [np.asarray(x) for x in got], [np.asarray(x) for x in want]
+
+
+def test_pallas_vote_state_matches_scan():
+    """The Pallas greedy-scan kernel (interpret mode on CPU) must produce
+    the identical final register state as the lax.scan path."""
     rng = np.random.default_rng(9)
     C, B, P = 3, 6, 40
     # sparse candidates over 4 genomes / 12 peaks
     pk = (rng.integers(0, 13, (C, B, P)) *
           (rng.random((C, B, P)) < 0.3)).astype(np.int32)
     peak_contig = np.array([0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4], np.int32)
+    got, want = _kernel_and_scan(peak_contig[pk], pk)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("C,B,P,n_genomes,density,n_slots", [
+    (3, 6, 40, 4, 0.3, 8),       # fewer genomes than slots
+    (3, 40, 64, 30, 0.5, 8),     # register overflow; B past one block
+    (3, 17, 256, 60, 0.6, 8),    # production P; overflow
+    (2, 33, 7, 5, 0.9, 8),       # P not a multiple of 8
+    (1, 3, 12, 3, 0.9, 8),       # one hash function
+    (3, 20, 48, 12, 0.7, 4),     # a 4-slot register
+    (3, 5, 16, 2, 0.0, 8),       # no candidates at all
+])
+def test_vote_kernel_cases(C, B, P, n_genomes, density, n_slots):
+    rng = np.random.default_rng(C * 1000 + B + P)
+    n_peaks = 4 * n_genomes + 1
+    peak_contig = np.concatenate(
+        [[0], rng.integers(1, n_genomes + 1, n_peaks - 1)]).astype(np.int32)
+    pk = (rng.integers(1, n_peaks, (C, B, P)) *
+          (rng.random((C, B, P)) < density)).astype(np.int32)
+    got, want = _kernel_and_scan(peak_contig[pk], pk, n_slots)
+    for name, a, b in zip(("slots_g", "slots_c", "slots_p", "hits"),
+                          got, want):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("B,want", [(8, 16), (512, 16), (4096, 16),
+                                    (32768, 64), (1 << 20, 64)])
+def test_vote_kernel_block_pairs(B, want):
+    from localhgt_tpu.ops import pallas_vote
+
+    assert pallas_vote.block_pairs(B) == want
+
+
+@pytest.mark.gpu
+def test_vote_kernel_compiled_on_gpu():
+    import jax.numpy as jnp
+
+    from localhgt_tpu.ops import pallas_vote
+
+    rng = np.random.default_rng(3)
+    C, B, P = 3, 4096, 256
+    peak_contig = np.concatenate(
+        [[0], rng.integers(1, 200, 999)]).astype(np.int32)
+    pk = (rng.integers(1, 1000, (C, B, P)) *
+          (rng.random((C, B, P)) < 0.5)).astype(np.int32)
     genome = peak_contig[pk]
-
-    got = pallas_vote.vote_state(jnp.asarray(genome), jnp.asarray(pk),
-                                 interpret=True)
-
-    # reference: the lax.scan in pipeline/peaks.py via split-in (emulate)
-    import jax
-
-    import localhgt_tpu.pipeline.peaks as pm_mod
-
-    backend = jax.default_backend()
-    assert backend != "tpu"  # conftest forces cpu; scan path is active
-    pf = jnp.zeros(14, jnp.int32)
-    # run _vote_core's scan by calling it directly with pk halves
-    half = P // 2
-    out_scan = pm_mod._vote_core(
-        pf, jnp.asarray(pk[:, :, :half]), jnp.asarray(pk[:, :, half:]),
-        jnp.asarray(peak_contig), jnp.asarray(np.ones(B, bool)),
-        min_base_num=2, n_slots=8)
-    out_pal = pm_mod._vote_tail(
-        pf, *[jnp.asarray(np.asarray(x)) for x in got],
-        jnp.asarray(np.ones(B, bool)), 2)
-    np.testing.assert_array_equal(np.asarray(out_scan), np.asarray(out_pal))
+    got = pallas_vote.vote_state(jnp.asarray(genome), jnp.asarray(pk))
+    want = pm.vote_state_scan(jnp.asarray(genome), jnp.asarray(pk), 8)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_register_overflow_evicts_spurious_genomes():

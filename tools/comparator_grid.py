@@ -20,9 +20,10 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lht_jax_cache")
 
 import comparator_run  # noqa: E402  (sibling tool, same directory)
+
+from localhgt_tpu.utils import compile_cache  # noqa: E402
 
 # scenario axes mirror sim/grid.py SCENARIOS (the paper harness grids)
 GRID = [
@@ -37,6 +38,8 @@ GRID = [
 
 def main():
     from localhgt_tpu.sim.simulate import SimParams
+
+    compile_cache.configure()
 
     base = sys.argv[1] if len(sys.argv) > 1 else "/tmp/lht_comp_grid"
     k = int(os.environ.get("LHT_BENCH_K", "32"))

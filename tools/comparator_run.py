@@ -85,11 +85,11 @@ def run(workdir: str = "/tmp/lht_comp", k: int = 32, pa=None,
             "extraction_truth_coverage": cov, "n_intervals": len(ref_ivs),
             "wall_s": round(wall, 1),
         }
-        tpu_ivs = ab_reference.run_tpu_extract(fq1, fq2, ref, cfg)
+        our_ivs = ab_reference.run_extract(fq1, fq2, ref, cfg)
         table["localhgt_tpu_extract_stage"] = {
             "stage": "extraction only (same scoring as the row above)",
-            "extraction_truth_coverage": _coverage(tpu_ivs, true_loci),
-            "n_intervals": len(tpu_ivs),
+            "extraction_truth_coverage": _coverage(our_ivs, true_loci),
+            "n_intervals": len(our_ivs),
         }
     else:
         table["reference_extract_ref"] = {"skipped": "no g++/source"}

@@ -21,7 +21,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lht_jax_cache")
 
 import numpy as np
 
@@ -34,10 +33,13 @@ def main():
     from localhgt_tpu.io import fastq
     from localhgt_tpu.pipeline import accbkp, align, bkp as bkp_mod, extract, rawbkp
     from localhgt_tpu.sim.simulate import read_truth
-    from localhgt_tpu.utils import formats
+    from localhgt_tpu.utils import compile_cache, formats
 
+    import bench
+
+    compile_cache.configure()
     scale = os.environ.get("LHT_BENCH_SCALE", "big")
-    fx = "/tmp/lht_bench"
+    fx = bench.FIXTURE_DIR
     ref = os.path.join(fx, f"bench_{scale}.ref.fa")
     fq1 = os.path.join(fx, f"bench_{scale}.1.fq")
     fq2 = os.path.join(fx, f"bench_{scale}.2.fq")

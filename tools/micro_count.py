@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Microbenchmark of the stage-A count step on the live chip.
+"""Microbenchmark of the stage-A count step on the device.
 
 Splits the per-batch device wall into: H2D transfer, hash, sort, delta,
-scatter — so the 194 s big-fixture count stage is attributable to one op.
+scatter — so the count stage is attributable to one op.
 Usage: python tools/micro_count.py [k]
 """
 
@@ -11,7 +11,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lht_jax_cache")
 
 import numpy as np
 
